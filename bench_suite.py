@@ -1,7 +1,8 @@
 """Extended benchmark suite: the five BASELINE.json configurations.
 
-Prints one JSON line per config. ``bench.py`` remains the single headline
-metric for the driver; this suite gives the full picture.
+Prints one JSON line per config, each naming the device it ran on.
+``bench.py`` remains the single headline metric; this suite gives the full
+picture.
 """
 import json
 import time
@@ -11,6 +12,8 @@ import numpy as np
 from wfsim_tpu.config import default_config
 from wfsim_tpu.dtypes import instruction_dtype, optical_extra_dtype
 from wfsim_tpu.interface.simulator import Simulator
+
+from bench import device_info
 
 
 def make_inst(n, types=(1, 2), amps=(2000, 300), spacing=4_000_000, seed=7):
@@ -52,7 +55,8 @@ def _run_geant4_row():
         ins0, channels, timings = read_optical(c)
     except (OSError, FileNotFoundError):
         print(json.dumps({'metric': 'GEANT4 optical (nVeto, real fixture)',
-                          'skipped': 'fixture not available'}), flush=True)
+                          'skipped': 'fixture not available',
+                          'device': device_info()}), flush=True)
         return
 
     reps = max(1, 256 // max(len(ins0), 1))
@@ -132,6 +136,7 @@ def _run_geant4_row():
     print(json.dumps({
         'metric': 'GEANT4 optical (nVeto, real fixture)',
         'value': round(n_ev / dt, 3), 'unit': 'events/s',
+        'device': device_info(),
         'runs_events_per_sec': [round(n_ev / d, 1) for d in dts],
         'stable': bool(max(dts) / min(dts) < 1.2),
         'fixture_events': int(len(np.unique(ins0['event_number']))),
@@ -149,8 +154,9 @@ def run_config(name, config, inst, cpu_baseline=None):
     20%) — one-run rows with excuses don't belong in end-of-round tables.
 
     ``cpu_baseline``: callable(truth) -> baseline dict (bench.py
-    measure_cpu_baseline-style), run AFTER the TPU timing so the matched
+    measure_cpu_baseline-style), run AFTER the device timing so the matched
     single-core numpy reference work never overlaps the device runs."""
+    device = device_info()
     sim = Simulator(config)
     _ = sim.get_arrays(inst)           # warmup/compile
     dts = []
@@ -164,7 +170,7 @@ def run_config(name, config, inst, cpu_baseline=None):
     n_ph = int(out['truth']['n_photon'].sum())
     row = {
         'metric': name, 'value': round(n_events / dt, 3),
-        'unit': 'events/s',
+        'unit': 'events/s', 'device': device,
         'runs_events_per_sec': [round(n_events / d, 1) for d in dts],
         'stable': bool(max(dts) / min(dts) < 1.2),
         'photons_per_sec': round(n_ph / dt, 1),
@@ -186,10 +192,9 @@ def main(only=None):
         return only is None or only in name
 
     if want('S1-only'):
-        # S1-only events carry ~26 photons each — per-event work is tiny, so
-        # at 256 events the row measured the relay's fixed latency, not
-        # throughput (0.42x vs numpy).  4096 events amortize the fixed
-        # costs the way any production batch would.
+        # S1-only events carry ~26 photons each — per-event work is tiny,
+        # so 4096 events amortize the fixed costs the way any production
+        # batch would.
         run_config('S1-only', default_config(**base),
                    make_inst(4096, types=(1,), amps=(2000,)),
                    cpu_baseline=lambda truth: measure_cpu_baseline(
@@ -259,7 +264,7 @@ def main(only=None):
     cpu = measure_cpu_optical_baseline(ppe=ppe, n_channels=120)
     print(json.dumps({
         'metric': 'optical photon-list (nVeto)', 'value': round(n_ev / dt, 3),
-        'unit': 'events/s',
+        'unit': 'events/s', 'device': device_info(),
         'runs_events_per_sec': [round(n_ev / d, 1) for d in dts],
         'stable': bool(max(dts) / min(dts) < 1.2),
         'photons_per_sec': round(n_ev * ppe / dt, 1),

@@ -1,5 +1,5 @@
 """Plain-numpy oracles implementing the documented behaviour of the reference
-simulator's numba kernels, used to property-test our TPU ops.
+simulator's numba kernels, used to property-test our device ops.
 
 These are written from the behavioural contracts in SURVEY.md (s2.3): a
 sequential hitfinder with holdoff, and per-photon SPE template scatter-add.

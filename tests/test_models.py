@@ -216,6 +216,54 @@ def test_per_pmt_truth():
     np.testing.assert_array_equal(per_pmt.sum(axis=1), tot)
 
 
+def test_diffuse_pattern_without_spread_is_the_point_pattern():
+    """With zero transverse diffusion every electron of an instruction sits
+    at its interaction point, so the per-instruction average of the
+    electrons' patterns is that point's pattern; padding electrons and
+    instructions without electrons do not disturb it."""
+    from wfsim_tpu.models.s2 import s2_pattern_map_diffuse
+    c, res, params, const = setup_models()
+    rng = np.random.default_rng(4)
+    n_inst, E = 5, 64
+    xy = jnp.asarray(rng.uniform(-30, 30, (n_inst, 2)), jnp.float32)
+    z = jnp.full(n_inst, -40.0, jnp.float32)
+    e_inst = jnp.asarray(np.sort(rng.integers(0, n_inst - 1, E)), jnp.int32)
+    e_valid = jnp.arange(E) < E - 6
+    pat = np.asarray(s2_pattern_map_diffuse(
+        params, const, jax.random.key(2), None, z, xy, e_inst, e_valid))
+    ref = np.asarray(params.s2_pattern(xy))
+    if ref.ndim == 1:
+        ref = ref[:, None] * np.ones((1, pat.shape[1]))
+    has = np.isin(np.arange(n_inst), np.asarray(e_inst)[np.asarray(e_valid)])
+    np.testing.assert_allclose(pat[has], ref[has], rtol=1e-5, atol=1e-7)
+    assert np.all(pat[~has] == 0)
+
+
+def test_photon_time_stats_scatter_path_matches_segment_path():
+    """Unsorted callers' sort + scan sums agree with the segment path."""
+    from wfsim_tpu.models.pmt import photon_time_stats
+    from wfsim_tpu.ops.segment import edges_from_counts
+    rng = np.random.default_rng(6)
+    counts = rng.integers(0, 50, 9).astype(np.int32)
+    counts[2] = 0
+    cap = int(counts.sum()) + 17
+    row = np.concatenate([np.repeat(np.arange(9), counts),
+                          np.full(17, 8)]).astype(np.int32)
+    t = rng.integers(0, 10 ** 6, cap).astype(np.int32)
+    valid = np.arange(cap) < counts.sum()
+    a = photon_time_stats(jnp.asarray(t), jnp.asarray(valid),
+                          jnp.asarray(row), 9)
+    b = photon_time_stats(jnp.asarray(t), jnp.asarray(valid),
+                          jnp.asarray(row), 9,
+                          row_edges=edges_from_counts(jnp.asarray(counts),
+                                                      cap))
+    for k in ('count', 't_min', 't_max'):
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+    for k in ('t_mean_offset', 't_sigma'):
+        np.testing.assert_allclose(np.asarray(a[k]), np.asarray(b[k]),
+                                   rtol=1e-4, atol=1e-2)
+
+
 def test_special_thresholds():
     c, res, params, const = setup_models(special_thresholds={'5': 100})
     thr = np.asarray(params.trigger_thresholds)

@@ -22,10 +22,14 @@ def test_templates_normalized():
     assert (t >= 0).all()
 
 
+@pytest.mark.parametrize('n_s', [256, 300])
 @pytest.mark.parametrize('seed', [0, 1, 2])
-def test_waveform_matches_oracle(seed):
+def test_waveform_matches_oracle(seed, n_s):
+    """Covers a sample count that is a multiple of 128 and one that is
+    not, so the superposition is checked at aligned and unaligned
+    shapes."""
     rng = np.random.default_rng(seed)
-    n_ch, n_s = 16, 256
+    n_ch = 16
     n_photon = 300
     templates = make_templates(
         np.arange(-13, 196), np.exp(-np.clip(np.arange(-13, 196), 0, None) / 25.0)
@@ -43,6 +47,64 @@ def test_waveform_matches_oracle(seed):
     W_ref = scatter_spe(times[valid], channels[valid], gains[valid],
                         left, n_ch, n_s, templates)
     np.testing.assert_allclose(np.asarray(W), W_ref, rtol=2e-5, atol=2e-5 * gains.max())
+
+
+@pytest.mark.parametrize('n,size', [(1, 7), (5000, 64), (20000, 4096)])
+def test_order_fixed_histogram_matches_scatter_add(n, size):
+    """The phase histogram's sort + segmented-scan sum agrees with a
+    float64 scatter-add, with many photons per cell and with empty cells."""
+    from wfsim_tpu.ops.segment import ordered_segment_sum
+    rng = np.random.default_rng(n)
+    cell = rng.integers(0, size, n).astype(np.int32)
+    g = rng.uniform(1e6, 3e6, n).astype(np.float32)
+    ref = np.zeros(size)
+    np.add.at(ref, cell, g.astype(np.float64))
+    H = np.asarray(ordered_segment_sum(jnp.asarray(g), jnp.asarray(cell),
+                                       size))
+    np.testing.assert_allclose(H, ref, rtol=2e-6)
+    assert np.all(H[ref == 0] == 0)
+
+
+def test_ordered_segment_sum_rows_and_dropped_ids():
+    """Vector values sum per segment; ids outside [0, n) are dropped, as a
+    scatter with mode='drop' would."""
+    from wfsim_tpu.ops.segment import ordered_segment_sum
+    rng = np.random.default_rng(3)
+    n, size = 3000, 40
+    seg = rng.integers(-3, size + 3, n).astype(np.int32)
+    v = rng.normal(size=(n, 5)).astype(np.float32)
+    ok = (seg >= 0) & (seg < size)
+    ref = np.zeros((size, 5))
+    np.add.at(ref, seg[ok], v[ok].astype(np.float64))
+    out = np.asarray(ordered_segment_sum(jnp.asarray(v), jnp.asarray(seg),
+                                         size))
+    assert out.shape == (size, 5)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_windowed_waveform_matches_per_window_calls():
+    """A (B, N) photon batch gives each window's waveform, bit for bit, in
+    rows ``b * n_channels ...``, and no photon leaks into another window."""
+    rng = np.random.default_rng(7)
+    B, N, n_ch, n_s = 3, 400, 8, 256
+    templates = make_templates(
+        np.arange(-13, 196), np.exp(-np.clip(np.arange(-13, 196), 0, None) / 25.0)
+        * (np.arange(-13, 196) >= 0))
+    times = rng.integers(0, (n_s - 30) * 10, (B, N)).astype(np.int32)
+    channels = rng.integers(-1, n_ch + 1, (B, N)).astype(np.int32)
+    gains = rng.uniform(0.5, 2e6, (B, N)).astype(np.float32)
+    valid = rng.random((B, N)) < 0.9
+    kw = dict(n_channels=n_ch, n_samples=n_s)
+    W = np.asarray(photons_to_waveform(
+        jnp.asarray(times), jnp.asarray(channels), jnp.asarray(gains),
+        jnp.asarray(valid), 0, jnp.asarray(templates), **kw))
+    assert W.shape == (B * n_ch, n_s)
+    for b in range(B):
+        Wb = np.asarray(photons_to_waveform(
+            jnp.asarray(times[b]), jnp.asarray(channels[b]),
+            jnp.asarray(gains[b]), jnp.asarray(valid[b]), 0,
+            jnp.asarray(templates), **kw))
+        np.testing.assert_array_equal(W[b * n_ch:(b + 1) * n_ch], Wb)
 
 
 @pytest.mark.parametrize('seed', list(range(6)))

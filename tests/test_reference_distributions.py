@@ -1,4 +1,4 @@
-"""Statistical parity of the TPU samplers vs numpy oracles of the
+"""Statistical parity of the device samplers vs numpy oracles of the
 reference's sampling semantics.
 
 Each oracle is an independent numpy implementation of the reference's

@@ -173,3 +173,39 @@ def test_sharded_step_hlo_has_only_documented_collectives():
     assert not big, f'all-reduce on large arrays: {big}'
     assert 'all-reduce' in txt, \
         'expected the documented psum collectives in the compiled step'
+
+
+@pytest.mark.skipif(len(jax.devices()) < 4, reason='needs 4 virtual devices')
+def test_mesh_digitize_sorts_each_windows_photons_locally():
+    """On the production mesh path the window batch of gather_digitize is
+    sharded over 'events'; the phase histogram's sort runs along each
+    window's photon axis, so each device sorts only its own windows and
+    nothing is all-gathered."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from wfsim_tpu.pipeline.digitize import gather_digitize
+    config = default_config()
+    params = build_params(config, load_config(config))
+    const = build_constants(config)
+    mesh = make_mesh(4, 1, devices=jax.devices()[:4])
+    B, n_cap, T = 8, 512, 256
+    rng = np.random.default_rng(0)
+    A = B * (n_cap - 64)
+    rep = NamedSharding(mesh, P())
+    ev = NamedSharding(mesh, P('events'))
+    arena = [jax.device_put(jnp.asarray(a), rep) for a in (
+        rng.integers(0, T * 10 - 300, A).astype(np.int32),
+        rng.integers(0, const.n_tpc_pmts, A).astype(np.int32),
+        rng.uniform(1e6, 3e6, A).astype(np.float32))]
+    pieces = np.zeros((B, 4, 3), np.int32)
+    for b in range(B):
+        pieces[b, 0] = (b * (n_cap - 64), n_cap - 64, 0)
+    txt = gather_digitize.lower(
+        params, const, *arena, jax.device_put(jnp.asarray(pieces), ev),
+        jax.device_put(jnp.zeros(B, jnp.int32), ev), n_samples=T,
+        n_pieces=4, n_cap=n_cap, max_intervals=64).compile().as_text()
+    assert 'all-gather' not in txt
+    sorts = [ln for ln in txt.splitlines()
+             if ' sort(' in ln and 'argsort' in ln]
+    assert sorts, 'no histogram sort in the compiled program'
+    for ln in sorts:
+        assert f's32[{B // 4},{n_cap}]' in ln, ln

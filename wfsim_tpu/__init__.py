@@ -1,10 +1,10 @@
-"""wfsim_tpu — a TPU-native waveform simulator for dual-phase xenon TPCs.
+"""wfsim_tpu — an accelerator waveform simulator for dual-phase xenon TPCs.
 
 Same capabilities and I/O contracts as XENONnT/WFSim (instructions in,
-strax raw_records + truth out), redesigned for JAX/XLA/Pallas on TPU:
-fixed-shape vmapped Monte Carlo for the physics chain, a dense
-histogram+convolution kernel for PMT pulse synthesis, vectorized
-zero-length encoding, and shard_map event parallelism over device meshes.
+strax raw_records + truth out), written in plain JAX: fixed-shape vmapped
+Monte Carlo for the physics chain, a dense histogram + convolution for PMT
+pulse synthesis, vectorized zero-length encoding, and event parallelism
+over device meshes.
 """
 __version__ = '0.1.0'
 
@@ -26,41 +26,34 @@ if not _os.environ.get('WFSIM_TPU_NO_MALLOPT'):
     except Exception:  # pragma: no cover - non-glibc platforms
         pass
 
-# Persistent XLA compilation cache: the pipeline compiles one program per
-# (photon-capacity, window-length) bucket; caching makes every process after
-# the first start warm.  The directory is keyed by the host CPU's ISA
-# signature: XLA:CPU stores AOT executables specialized to the build
-# machine's features, and loading one on a host without those features
-# SIGILLs (observed as a segfault inside get_executable_and_time when this
-# repo's cache moved between machine types).  Opt out with
-# WFSIM_TPU_NO_COMPILE_CACHE=1.  Explicit-CPU runs skip it entirely:
-# XLA:CPU AOT (de)serialization is unreliable on this host class (SIGILL on
-# cross-machine entries, observed write-side segfaults) and CPU compiles
-# are cheap anyway.
-if not _os.environ.get('WFSIM_TPU_NO_COMPILE_CACHE') \
-        and _os.environ.get('JAX_PLATFORMS', '').strip().lower() != 'cpu' \
-        and _os.environ.get('JAX_PLATFORM_NAME', '').strip().lower() != 'cpu':
-    _cache_dir = _os.environ.get('JAX_COMPILATION_CACHE_DIR')
-    if not _cache_dir:
-        try:
-            import hashlib as _hashlib
-            with open('/proc/cpuinfo') as _fh:
-                for _line in _fh:
-                    if _line.startswith('flags'):
-                        _sig = _hashlib.sha1(
-                            _line.encode()).hexdigest()[:8]
-                        break
-                else:
-                    _sig = 'nocpu'
-        except Exception:  # pragma: no cover - non-linux
-            _sig = 'nocpu'
-        _cache_dir = _os.path.expanduser(f'~/.cache/wfsim_tpu_xla_{_sig}')
-    try:
-        import jax as _jax
-        _jax.config.update('jax_compilation_cache_dir', _cache_dir)
-        _jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.5)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+
+def compile_cache_dir(environ=None):
+    """Directory of the persistent XLA compilation cache, or None.
+
+    The pipeline compiles one program per (photon-capacity, window-length)
+    bucket, so a warm cache turns minutes of set-up into seconds.  A set
+    ``JAX_COMPILATION_CACHE_DIR`` is used as given.  Otherwise the cache is
+    ``.jax_cache`` at the root of the checkout: a fixed path, because the
+    path is part of what the cache is found by.  Explicit CPU runs and
+    ``WFSIM_TPU_NO_COMPILE_CACHE=1`` get none: XLA:CPU executables are
+    specialised to the host's instruction set and cheap to compile.
+    """
+    env = _os.environ if environ is None else environ
+    if env.get('WFSIM_TPU_NO_COMPILE_CACHE'):
+        return None
+    if 'cpu' in (env.get('JAX_PLATFORMS', '').strip().lower(),
+                 env.get('JAX_PLATFORM_NAME', '').strip().lower()):
+        return None
+    return env.get('JAX_COMPILATION_CACHE_DIR') or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        '.jax_cache')
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir:
+    import jax as _jax
+    _jax.config.update('jax_compilation_cache_dir', _cache_dir)
+    _jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.5)
 
 from .units import *                        # noqa: F401,F403
 from . import units                         # noqa: F401

@@ -4,7 +4,7 @@ Defines the same plugin surface as the reference
 (reference: wfsim/strax_interface.py:506-1017): ``RawRecordsFromFaxNT``,
 ``RawRecordsFromFax1T``, ``RawRecordsFromFaxOpticalNT``,
 ``RawRecordsFromMcChain``, ``RawRecordsFromFaxnVeto``,
-``RawRecordsFromMcChain1T``, all backed by the TPU pipeline.
+``RawRecordsFromMcChain1T``, all backed by the device pipeline.
 
 Import of this module is safe without strax: ``HAVE_STRAX`` is False and the
 plugin classes are absent.

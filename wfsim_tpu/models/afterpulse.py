@@ -78,8 +78,8 @@ def pmt_afterpulse_photons(params, const, photons, key, *, ap_capacity: int,
     # (argmin index 0 is chosen iff rU1 lies at or below that midpoint,
     # tie picking index 0 like the reference's np.argmin).  Draw order and
     # shapes are unchanged, so outputs are bitwise identical.
-    # ONE wide key split for all elements (device splits cost ~10-15 ms
-    # each; the per-element split(4) chain was n_elements serialized splits)
+    # ONE wide key split for all elements (the per-element split(4) chain
+    # was n_elements serialized splits)
     eks = jax.random.split(key, 3 * n_elements)
     all_sel, all_rU0, all_aux = [], [], []
     for e in range(n_elements):

@@ -4,7 +4,7 @@
 needs (maps, SPE tables, templates, AP CDFs, noise).  ``SimConstants`` is a
 frozen (hashable) dataclass of scalars and switches used as a static jit
 argument, so each configuration compiles to a specialized program with all
-branches folded away — the TPU-native analogue of the reference's config dict
+branches folded away — the compiled analogue of the reference's config dict
 threading (reference passes `config` into every kernel).
 """
 from __future__ import annotations
@@ -54,8 +54,7 @@ class SimParams:
     #: (C, 4) f32 [gain, trigger_threshold, live, bottom] — the per-channel
     #: scalars the PMT stage reads per photon, packed so one 4-wide block
     #: gather replaces four/five independent (N,)-element random gathers
-    #: (TPU gather cost is ~per index, not per element — see BENCH_NOTES
-    #: round 4)
+    #: (unmeasured on H100, ROADMAP C2)
     chan_pack: jnp.ndarray
     # Maps
     s1_lce: GridMap
@@ -97,7 +96,7 @@ class SimParams:
     # on both sides: noise_ext[c, NOISE_PAD + x] == noise_data[x % L, c] for
     # x in [-NOISE_PAD, L + NOISE_PAD). Lets the digitize overlay fetch each
     # channel's window as ONE contiguous slice instead of a pointwise
-    # modular gather (measured 345 ms -> slice-speed per call).
+    # modular gather.
     noise_ext: ty.Optional[jnp.ndarray]        # (Cn, L + 2*NOISE_PAD) i32
 
 
@@ -443,7 +442,7 @@ def build_params(config, resource: Resource) -> SimParams:
         # wrap-extended copy); cache the device arrays on the resource —
         # resources are shared across Simulator constructions via the
         # config-hash cache, so the upload happens once per process, not
-        # once per Simulator (measured 12-24 s per build over the relay)
+        # once per Simulator
         cached = getattr(resource, '_noise_device_cache', None)
         if cached is not None:
             noise, noise_ext = cached

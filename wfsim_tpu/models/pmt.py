@@ -1,7 +1,7 @@
 """PMT response stage: transit-time spread, double-PE emission, SPE gain
 sampling, and truth counters.
 
-TPU-native replacement for the reference's per-channel python loop in
+Vectorized replacement for the reference's per-channel python loop in
 ``Pulse.__call__`` (reference: wfsim/core/pulse.py:39-144): all photons of a
 batch are processed at once; per-truth-row aggregation uses scatter-adds
 instead of accumulating dicts.
@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..ops.segment import ordered_segment_sum
 from .common import trunc_int
 
 __all__ = ['pmt_response', 'photon_time_stats']
@@ -30,12 +31,12 @@ def pmt_response(params, const, t, ch, valid, truth_row, key,
         (reference: pulse.py:52-56, 95-107)
     :param row_edges: optional (n_truth_rows+1,) int32 photon boundaries per
         truth row (truth_row ascending); enables cumsum-based truth counters
-        instead of scatter-adds (which serialize into small outputs on TPU)
+        instead of scatter-adds into the small per-row output
     :returns: (photons dict, truth dict or None)
 
-    ``key`` may be a pre-split (>=4,) key array — device splits cost
-    ~10-15 ms each (see models/common.py _key2), so the sim chains split
-    once at their top and pass key slices down.
+    ``key`` may be a pre-split (>=4,) key array — the sim chains split
+    once at their top and pass key slices down (see models/common.py
+    _key2).
     """
     if getattr(key, 'ndim', 0) >= 1 and key.shape[0] >= 4:
         k_tts, k_dpe, k_g1, k_g2 = key[0], key[1], key[2], key[3]
@@ -45,8 +46,8 @@ def pmt_response(params, const, t, ch, valid, truth_row, key,
 
     chc = jnp.clip(ch, 0, params.gains.shape[0] - 1)
     # one 4-wide block gather for every per-channel scalar this stage
-    # needs (gain, threshold, live, bottom) — TPU gather cost is ~per
-    # index, so the packed row is ~4x cheaper than separate gathers
+    # needs (gain, threshold, live, bottom): one index per photon instead
+    # of four (unmeasured on H100, ROADMAP C2)
     cp = params.chan_pack[chc]
     gain_ch = cp[:, 0]
     if preset_gain is None:
@@ -58,8 +59,8 @@ def pmt_response(params, const, t, ch, valid, truth_row, key,
         u2 = jax.random.uniform(k_g2, (n,))
         idx1 = (u1 * 2000).astype(jnp.int32) + 1
         idx2 = (u2 * 2000).astype(jnp.int32) + 1
-        # flat 1-D indexing: 2-D (row, col) gathers cost ~40% more per
-        # index on TPU than the same gather with a precomputed flat index
+        # flat 1-D indexing with a precomputed flat index (unmeasured on H100,
+        # ROADMAP C2)
         ut = params.uniform_to_pe.reshape(-1)
         m = params.uniform_to_pe.shape[1]
         base = chc * m
@@ -103,9 +104,8 @@ def _pulse_truth(params, const, ph, n_truth_rows: int, row_edges=None):
     dt = const.sample_duration
 
     remainder = jnp.where(t >= 0, t % dt, (t % dt + dt) % dt)
-    # 10-entry table lookup as a one-hot masked sum: a (N,)-element random
-    # gather runs ~0.45 GB/s on TPU while this fuses into one elementwise
-    # pass over the photon axis
+    # 10-entry table lookup as a one-hot masked sum, which fuses into one
+    # elementwise pass over the photon axis (unmeasured on H100, ROADMAP C2)
     cm = jnp.sum(
         jnp.where(remainder[:, None]
                   == jnp.arange(dt, dtype=jnp.int32)[None, :],
@@ -123,17 +123,19 @@ def _pulse_truth(params, const, ph, n_truth_rows: int, row_edges=None):
 
     # truth_row is ascending by construction (photons are generated grouped
     # by instruction), so per-row sums are cumsum+boundary-gather segment
-    # sums — scatter-adds into the small (n_truth_rows,) output serialize
-    # on TPU (hundreds of ms per sim call at 2^21 photons). Callers pass
+    # sums rather than scatter-adds into the small (n_truth_rows,) output
+    # (unmeasured on H100, ROADMAP C2). Callers pass
     # the boundaries precomputed from count cumsums; the searchsorted
-    # fallback also lowers poorly at large N, so scatter is the fallback.
+    # fallback also lowers poorly at large N, so an order-fixed sort + scan
+    # sum is the fallback.
     if row_edges is not None:
         def acc(x):
             return sorted_segment_sum(x, row_edges, valid=valid)
     else:
         def acc(x):
-            return jnp.zeros(n_truth_rows, jnp.float32).at[row].add(
-                jnp.where(valid, x.astype(jnp.float32), 0.0))
+            return ordered_segment_sum(
+                jnp.where(valid, x.astype(jnp.float32), 0.0), row,
+                n_truth_rows)
 
     out = {
         'n_photon': acc(v1),
@@ -146,8 +148,9 @@ def _pulse_truth(params, const, ph, n_truth_rows: int, row_edges=None):
     if const.per_pmt_truth:
         nc = params.gains.shape[0]
         def acc2(x):
-            z = jnp.zeros((n_truth_rows, nc), jnp.float32)
-            return z.at[row, chc].add(jnp.where(valid, x, 0.0))
+            return ordered_segment_sum(
+                jnp.where(valid, x, 0.0), row * nc + chc,
+                n_truth_rows * nc).reshape(n_truth_rows, nc)
         for name, x in [('n_photon', v1), ('n_pe', pe_w),
                         ('n_photon_trigger', trig), ('n_pe_trigger', pe_trig),
                         ('raw_area', gain_over_g), ('raw_area_trigger', area_trig)]:
@@ -159,8 +162,9 @@ def _pulse_truth(params, const, ph, n_truth_rows: int, row_edges=None):
                 return sorted_segment_sum(x, row_edges, valid=bot)
         else:
             def accb(x):
-                return jnp.zeros(n_truth_rows, jnp.float32).at[row].add(
-                    jnp.where(bot, x.astype(jnp.float32), 0.0))
+                return ordered_segment_sum(
+                    jnp.where(bot, x.astype(jnp.float32), 0.0), row,
+                    n_truth_rows)
         for name, x in [('n_photon', v1), ('n_pe', pe_w),
                         ('n_photon_trigger', trig), ('n_pe_trigger', pe_trig),
                         ('raw_area', gain_over_g), ('raw_area_trigger', area_trig)]:
@@ -181,8 +185,8 @@ def photon_time_stats(t, valid, truth_row, n_truth_rows: int,
     segment sums, a log-step shifted reduction for min/max, and a
     diff-cumsum broadcast of the per-row minimum — replacing five
     scatter-reductions into the small (n_truth_rows,) output plus a
-    (N,)-index gather, together ~50 ms/call at 2^20 photons (TPU serializes
-    both at ~10 ns/index).  The scatter path remains for unsorted callers.
+    (N,)-index gather (unmeasured on H100, ROADMAP C2).  The scatter path
+    remains for unsorted callers.
     """
     BIG = jnp.int32(2 ** 31 - 1)
     if row_edges is not None:
@@ -204,11 +208,10 @@ def photon_time_stats(t, valid, truth_row, n_truth_rows: int,
             jnp.where(valid, t, BIG))
         tmax = jnp.full(n_truth_rows, -BIG, jnp.int32).at[row].max(
             jnp.where(valid, t, -BIG))
-        centered = (t - tmin[row]).astype(jnp.float32)
-        s1_ = jnp.zeros(n_truth_rows, jnp.float32).at[row].add(
-            jnp.where(valid, centered, 0.0))
-        s2_ = jnp.zeros(n_truth_rows, jnp.float32).at[row].add(
-            jnp.where(valid, centered * centered, 0.0))
+        centered = jnp.where(valid, (t - tmin[row]).astype(jnp.float32), 0.0)
+        s1_, s2_ = ordered_segment_sum(
+            jnp.stack([centered, centered * centered], axis=1), row,
+            n_truth_rows).T
     cntf = jnp.maximum(cnt.astype(jnp.float32), 1.0)
     mean_c = s1_ / cntf
     var = jnp.maximum(s2_ / cntf - mean_c * mean_c, 0.0)

@@ -56,8 +56,8 @@ def s1_n_photon_hits(params, const, positions, amp, valid, key):
 def _custom_recoil_delays(const, keys, recoil_cls, n):
     """Per-recoil-class excimer/recombination timing models
     (reference: s1.py:262-337), all classes computed and selected.
-    ``keys``: a (>=8,) pre-split key array (device splits cost ~10-15 ms
-    each — the chain splits once at its top)."""
+    ``keys``: a (>=8,) pre-split key array (the chain splits once at its
+    top)."""
     if getattr(keys, 'ndim', 0) == 0:
         keys = jax.random.split(keys, 11)
     shape = (n,)
@@ -149,7 +149,7 @@ def simulate_s1(params, const, inst, key, *, capacity: int, n_truth_rows: int):
     :returns: (photons, truth, total_photons) — photons as in pmt_response,
         truth with counter + timing-stat arrays per truth row.
 
-    Key layout (ONE device split — splits cost ~10-15 ms each): 0 yield /
+    Key layout (ONE device split, see models/common.py _key2): 0 yield /
     1 channel / 2 optical / 3 decay / 4 spread / 5-15 custom recoil /
     16 nest / 17-20 PMT response.
     """
@@ -205,7 +205,7 @@ def simulate_s1(params, const, inst, key, *, capacity: int, n_truth_rows: int):
     from ..ops.segment import edges_from_counts
     inst_ph_off = edges_from_counts(n_hits, capacity)              # (I+1,)
     # hierarchical block search with a sentinel column (jnp.searchsorted
-    # lowers to a vmapped while-loop, ~9 ms traced; see models/s2.py)
+    # lowers to a vmapped while-loop; unmeasured on H100 (ROADMAP C2))
     from ..ops.randsample import search_sorted_rows
     tr_ext = jnp.concatenate([inst['truth_row'].astype(jnp.int32),
                               jnp.full(1, 2 ** 30, jnp.int32)])

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 
 from .. import units
 from ..ops.randsample import categorical_from_cdf, binomial, poisson
-from ..ops.segment import segment_ids_from_counts
+from ..ops.segment import segment_ids_from_counts, ordered_segment_sum
 from .common import singlet_triplet_delays, skew_normal, rz_lookup, trunc_int
 from .pmt import pmt_response, photon_time_stats
 
@@ -25,8 +25,8 @@ __all__ = ['simulate_s2', 'inverse_field_distortion_correction',
            'field_distortion_comsol', 'get_s2_drift_time_params',
            'get_electron_yield', 'get_s2_light_yield']
 
-#: top-level key-split width of the S2 chain (one device split per kernel;
-#: splits measured ~10-15 ms each on the target TPU)
+#: top-level key-split width of the S2 chain (one device split per kernel,
+#: see models/common.py _key2)
 N_S2_KEYS = 20
 
 
@@ -144,10 +144,9 @@ def _interp_rows(x_rows, y_rows, row_idx, q):
     ``np.interp(probabilities, y, t)`` (s2.py:338)."""
     R = x_rows.shape[-1]
     # hierarchical block search (2-3 block gathers instead of log2(R)
-    # scalar-gather rounds; bitwise-identical bracketing index), then the
-    # four lerp operands ride ONE 4-wide block gather of an interleaved
-    # (x, y) pair table — TPU gathers cost ~10 ns per *index* nearly
-    # independent of block width
+    # scalar-gather rounds; bitwise-identical bracketing index), then the four
+    # lerp operands ride ONE 4-wide block gather of an interleaved (x, y) pair
+    # table: fewer indices for the same bytes (unmeasured on H100, ROADMAP C2)
     from ..ops.randsample import search_sorted_rows
     i1 = jnp.clip(search_sorted_rows(x_rows, row_idx, q, side='left'),
                   1, R - 1)
@@ -287,8 +286,9 @@ def luminescence_garfield_gasgap(params, const, key, xy, ph_inst, ph_valid,
     # per-instruction mean subtraction
     n_inst = xy.shape[0]
     vald = ph_valid.astype(jnp.float32)
-    cnt = jnp.zeros(n_inst, jnp.float32).at[ph_inst].add(vald)
-    s = jnp.zeros(n_inst, jnp.float32).at[ph_inst].add(jnp.where(ph_valid, T, 0.0))
+    cnt, s = ordered_segment_sum(
+        jnp.stack([vald, jnp.where(ph_valid, T, 0.0)], axis=1), ph_inst,
+        n_inst).T
     mean = s / jnp.maximum(cnt, 1.0)
     return (T - mean[ph_inst])
 
@@ -334,9 +334,8 @@ def s2_pattern_map_diffuse(params, const, key, n_electron_like, z, xy,
         pat_e = pat_e[:, None] * jnp.ones((1, params.gains.shape[0]))
     w = inside.astype(pat_e.dtype)
     n_inst = xy.shape[0]
-    num = jnp.zeros((n_inst, pat_e.shape[1]), pat_e.dtype).at[e_inst].add(
-        pat_e * w[:, None])
-    den = jnp.zeros(n_inst, pat_e.dtype).at[e_inst].add(w)
+    num = ordered_segment_sum(pat_e * w[:, None], e_inst, n_inst)
+    den = ordered_segment_sum(w, e_inst, n_inst)
     return num / jnp.maximum(den, 1.0)[:, None]
 
 
@@ -385,10 +384,9 @@ def _s2_electron_stage(params, const, inst, keys, *, e_capacity: int):
     exactly before the full kernel runs.  Draw-for-draw identical between
     the pre-pass and the full chain: both split the same key the same way.
 
-    ``keys`` is the one wide top-level split (N_S2_KEYS slots): device key
-    splits cost ~10-15 ms each on the target TPU, so the whole chain
-    splits exactly once and threads key slices down (slots 0-4 here; see
-    simulate_s2 for the full layout).
+    ``keys`` is the one wide top-level split (N_S2_KEYS slots): the whole
+    chain splits exactly once and threads key slices down (slots 0-4 here;
+    see simulate_s2 for the full layout).
     """
     x, y, z = inst['x'], inst['y'], inst['z']
 
@@ -447,7 +445,7 @@ def simulate_s2(params, const, inst, key, *, e_capacity: int, capacity: int,
         electrons), recoil, valid, truth_row
     :returns: (photons, truth, totals dict)
 
-    Key layout (ONE device split — splits cost ~10-15 ms each):
+    Key layout (ONE device split, see models/common.py _key2):
     0-4 electron stage / 5 channel draw / 6-7 AFT skew / 8-9 diffuse
     pattern / 10-11 luminescence / 12-13 singlet-triplet / 14 time model /
     15-18 PMT response.
@@ -461,9 +459,9 @@ def simulate_s2(params, const, inst, key, *, e_capacity: int, capacity: int,
 
     ph_e, ph_valid, total_ph = segment_ids_from_counts(n_ph_per_e, capacity)
     # per-electron -> per-photon broadcasts as diff-scatter + cumsum
-    # (ops/segment.py expand_rows) instead of (capacity,)-index gathers:
-    # TPU gathers serialize at ~10 ns/index (~8 ms each at 2^20 photons)
-    # while the cumsum is one cheap vector pass; values are identical
+    # (ops/segment.py expand_rows) instead of (capacity,)-index gathers: the
+    # cumsum is one vector pass (unmeasured on H100, ROADMAP C2); values are
+    # identical
     from ..ops.segment import edges_from_counts, expand_rows
     e_ph_edges = edges_from_counts(n_ph_per_e, capacity)           # (E+1,)
     ph_inst = expand_rows(e_inst, e_ph_edges, capacity)
@@ -518,14 +516,14 @@ def simulate_s2(params, const, inst, key, *, e_capacity: int, capacity: int,
     t = t + expand_rows(e_t, e_ph_edges, capacity)
 
     # per-instruction and per-truth-row photon boundaries, derived from the
-    # count cumsums (no large searchsorted/scatter: both lower to serialized
-    # loops on TPU — see ops/segment.py)
+    # count cumsums (no large searchsorted/scatter, see ops/segment.py;
+    # unmeasured on H100 (ROADMAP C2))
     e_off = edges_from_counts(n_electron, e_capacity)              # (I+1,)
     tot_ph = jnp.concatenate([jnp.zeros(1, jnp.int32),
                               jnp.cumsum(jnp.where(e_valid, n_ph_per_e, 0))])
     inst_ph_off = jnp.clip(tot_ph[e_off], 0, capacity)             # (I+1,)
-    # jnp.searchsorted lowers to a vmapped while-loop (9 ms traced even at
-    # 1k queries); the hierarchical block search is the fast exact form.
+    # jnp.searchsorted lowers to a vmapped while-loop; the hierarchical
+    # block search is the exact alternative (unmeasured on H100, ROADMAP C2).
     # A sentinel column keeps the one-past-the-end result searchsorted can
     # return (the search clamps to its table width).
     from ..ops.randsample import search_sorted_rows
@@ -559,12 +557,13 @@ def simulate_s2(params, const, inst, key, *, e_capacity: int, capacity: int,
     if const.field_distortion_model in ('inverse_fdc', 'comsol'):
         row = jnp.where(inst['valid'], inst['truth_row'], 0)
         v1 = inst['valid'].astype(jnp.float32)
-        cnt = jnp.zeros(n_truth_rows, jnp.float32).at[row].add(v1)
-        for name, vals in (('x_mean_electron', positions[:, 0]),
-                           ('y_mean_electron', positions[:, 1])):
-            s = jnp.zeros(n_truth_rows, jnp.float32).at[row].add(
-                jnp.where(inst['valid'], vals, 0.0))
-            truth[name] = s / jnp.maximum(cnt, 1.0)
+        sums = ordered_segment_sum(
+            jnp.concatenate([v1[:, None], jnp.where(
+                inst['valid'][:, None], positions[:, :2], 0.0)], axis=1),
+            row, n_truth_rows)
+        cnt = jnp.maximum(sums[:, 0], 1.0)
+        truth['x_mean_electron'] = sums[:, 1] / cnt
+        truth['y_mean_electron'] = sums[:, 2] / cnt
     # per-instruction photon demand: photon-count cumsum differenced at the
     # electron boundaries of each instruction (the scatter-add form was the
     # single hottest op of the whole sim chain, 1.8 s/call at 2^18

@@ -12,35 +12,34 @@ import numpy as np
 
 
 def _autobuild():
-    """Best-effort one-time build of the C extension when it is missing.
+    """Best-effort build of the C extension when no built copy is importable.
 
-    Ephemeral/re-imaged hosts lose the in-place ``_fastpath`` shared object
-    (it is a build artifact, not checked in); silently falling back to the
-    numpy paths costs ~2x on the host decode/split stages, so when the
-    source tree and a C compiler are present, compile into a per-user cache
-    keyed by source mtime/size and python ABI, and load from there.  Any
-    failure (no compiler, read-only FS, installed-wheel layout without the
-    source) degrades to the numpy fallbacks exactly as before.  Set
+    Compiles ``native/fastpath.c`` into ``build/native/`` of the checkout
+    (listed in ``.gitignore``), under a name keyed by a hash of the source
+    and the Python ABI tag, so a fresh copy of the same tree finds the
+    build again and an edited source never loads a stale one.  Any failure
+    (no compiler, read-only tree, installed-wheel layout without the
+    source) leaves the numpy fallbacks in charge.  Set
     WFSIM_TPU_NO_AUTOBUILD=1 to disable.
     """
     if os.environ.get('WFSIM_TPU_NO_AUTOBUILD'):
         return None
+    import hashlib
     import importlib.util
     import subprocess
     import sysconfig
     try:
-        src = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), 'native', 'fastpath.c')
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        src = os.path.join(root, 'native', 'fastpath.c')
         if not os.path.isfile(src):
             return None
-        st = os.stat(src)
+        with open(src, 'rb') as fh:
+            digest = hashlib.sha256(fh.read()).hexdigest()[:16]
         suffix = sysconfig.get_config_var('EXT_SUFFIX') or '.so'
-        cache = os.path.join(os.path.expanduser('~'), '.cache',
-                             'wfsim_tpu_native')
-        so = os.path.join(cache, '_fastpath_%d_%d%s'
-                          % (int(st.st_mtime), st.st_size, suffix))
+        out_dir = os.path.join(root, 'build', 'native')
+        so = os.path.join(out_dir, '_fastpath_%s%s' % (digest, suffix))
         if not os.path.isfile(so):
-            os.makedirs(cache, exist_ok=True)
+            os.makedirs(out_dir, exist_ok=True)
             cc = os.environ.get('CC', 'cc')
             tmp = so + '.tmp%d' % os.getpid()
             subprocess.run(

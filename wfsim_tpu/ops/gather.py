@@ -1,15 +1,15 @@
-"""Fast contiguous-span gathers for TPU.
+"""Contiguous-span gathers built from row-indexed block gathers.
 
-On this TPU backend the ONLY fast gather form is a row-indexed block
-gather from a 2-D table (``tab[idx]`` — ~0.3 ms per 131k rows at any width
-up to 256); arbitrary-start 1-D slice gathers (``vmap(dynamic_slice)`` or
-``lax.gather`` with a >1 slice size) element-serialize at ~10 ns/element
-(~50x slower at record-pack shapes — measured, bench_micro3.py).
+These forms replace arbitrary-start 1-D slice gathers
+(``vmap(dynamic_slice)`` or ``lax.gather`` with a >1 slice size) by a
+row-indexed block gather from a 2-D table (``tab[idx]``), on the premise
+that a gather costs per index rather than per byte (unmeasured on H100,
+ROADMAP C2).
 
 :func:`gather_spans` reads ``width`` consecutive elements starting at an
 arbitrary flat offset per query by gathering the covering 128-aligned
 blocks as table rows and aligning them with a log-step barrel shift
-(7 static-shift select passes, which XLA streams on the VPU).
+(7 static-shift select passes).
 """
 from __future__ import annotations
 
@@ -29,9 +29,8 @@ def stream_compact(vals: jnp.ndarray, mask: jnp.ndarray, out_len: int):
     of d, can only collide if r_b - r_a < d AND bit k differs — impossible.
     Vacated slots that receive nothing are invalidated (shift -1) so stale
     copies never move again.  Exactness is pinned by
-    tests/test_ops.py::test_stream_compact_matches_compress and the bench
-    A/B in bench_micro5.py (~5x the equivalent-index gather at pack
-    shapes: passes stream on the VPU, gathers serialize per index).
+    tests/test_ops.py::test_stream_compact_matches_compress; whether it
+    beats the equivalent-index gather is unmeasured on H100 (ROADMAP C2).
     """
     n = vals.shape[0]
     rank = jnp.cumsum(mask.astype(jnp.int32)) - 1

@@ -3,7 +3,7 @@
 The reference wraps detector maps in ``straxen.InterpolatingMap`` with
 scattered-point weighted-nearest-neighbour interpolation evaluated on the
 host (reference: wfsim/load_resource.py:383-402).  Scattered-point lookup is
-TPU-hostile (data-dependent neighbour search), so this framework re-grids
+a data-dependent neighbour search, so this framework re-grids
 every map ONCE at load time onto a regular grid (host side, numpy/scipy) and
 performs multilinear interpolation on device — a handful of gathers plus FMAs
 that XLA fuses, constant-shape and vmappable.

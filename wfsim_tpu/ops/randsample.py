@@ -28,9 +28,9 @@ def binomial(key, n, p):
 
 
 def _threefry_key(key):
-    """jax.random.poisson is threefry-only; when the session runs a faster
-    default PRNG (e.g. rbg, which maps to the TPU hardware generator), fold
-    the key's data into a threefry key just for the poisson draw."""
+    """jax.random.poisson is threefry-only; when the configuration picks
+    another generator (``prng_impl``, e.g. rbg), fold the key's data into a
+    threefry key just for the poisson draw."""
     try:
         if 'threefry' in str(jax.random.key_impl(key)):
             return key
@@ -49,8 +49,9 @@ def poisson(key, lam):
 def _plan_widths(C: int):
     """Block widths (outermost first) for the hierarchical row search:
     innermost block <= 32 lanes, inner levels 16, outermost whatever remains
-    — minimizes the number of block gathers (the per-INDEX cost dominates a
-    TPU gather, so one (1, 32) block costs about one scalar element)."""
+    — minimizes the number of block gathers, on the premise that a gather
+    costs per index, so one (1, 32) block costs about one scalar element
+    (unmeasured on H100, ROADMAP C2)."""
     if C <= 32:
         return [max(C, 1)]
     prod = 32
@@ -105,9 +106,8 @@ def search_sorted_rows(tab: jnp.ndarray, row_idx: jnp.ndarray,
     (side='right') or ``tab[row, i] >= q`` (side='left'), clamped to
     [0, C-1].  Bitwise-identical to the log2(C)-round binary search it
     replaces, but costs len(_plan_widths(C)) block gathers (2 for C<=512,
-    3 for C<=8192) instead of log2(C) scalar gathers — TPU gathers are
-    per-index bound (~10 ns/index measured), so this is the difference
-    between ~2 and ~11 serialized passes at bench shapes.
+    3 for C<=8192) instead of log2(C) scalar gathers: ~2 instead of ~11
+    dependent passes at bench shapes (unmeasured on H100, ROADMAP C2).
     """
     R, C = tab.shape
     widths = _plan_widths(C)

@@ -1,7 +1,7 @@
 """Fixed-capacity ragged helpers.
 
 The physics is ragged (each instruction produces a different number of
-photons/electrons); TPUs want static shapes.  The core trick everywhere in
+photons/electrons); compiled programs want static shapes.  The core trick in
 this framework: lay the ragged axis out in a fixed-capacity padded buffer,
 derive a per-slot segment id by searchsorted on the count cumsum, and carry a
 validity mask.  This replaces every ``np.repeat`` in the reference
@@ -9,9 +9,11 @@ validity mask.  This replaces every ``np.repeat`` in the reference
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
-__all__ = ['segment_ids_from_counts', 'repeat_to_capacity']
+__all__ = ['segment_ids_from_counts', 'repeat_to_capacity',
+           'ordered_segment_sum']
 
 
 def segment_ids_from_counts(counts: jnp.ndarray, capacity: int):
@@ -44,8 +46,8 @@ def segment_edges(seg_id_sorted: jnp.ndarray, n_segments: int):
     position with ``seg_id >= s``, so segment s occupies
     ``[edges[s], edges[s+1])``.
 
-    NOTE: searchsorted over a large device array lowers poorly on TPU
-    (measured 1.4 s at 262k elements x 513 queries); when the ids came from
+    NOTE: searchsorted over a large device array lowers to a loop
+    (unmeasured on H100, ROADMAP C2); when the ids came from
     :func:`segment_ids_from_counts`, build the edges directly from the
     counts with :func:`edges_from_counts` instead.
     """
@@ -68,10 +70,10 @@ def expand_rows(vals: jnp.ndarray, edges: jnp.ndarray, capacity: int):
     ``i in [edges[r], edges[r+1])`` (positions past ``edges[-1]`` repeat the
     last value; callers mask).
 
-    This replaces ``vals[seg_id]`` — a (capacity,)-index scalar gather,
-    ~10 ns/index on TPU regardless of table size — with one tiny
-    diff-scatter plus one cumsum: exact for integers because the cumsum of
-    the int32 difference sequence telescopes.
+    This replaces ``vals[seg_id]`` — a (capacity,)-index scalar gather —
+    with one tiny diff-scatter plus one cumsum (unmeasured on H100,
+    ROADMAP C2): exact for integers because the cumsum of the int32
+    difference sequence telescopes.
     """
     vals = vals.astype(jnp.int32)
     prev = jnp.concatenate([jnp.zeros(1, jnp.int32), vals[:-1]])
@@ -85,8 +87,8 @@ def segment_min_max(values: jnp.ndarray, seg_id: jnp.ndarray,
                     valid=None, big: int = 2 ** 31 - 1):
     """Per-segment (min, max) of int32 values for contiguous ASCENDING
     segment ids, via a log-step shifted reduction instead of scatter-min/max
-    (which serialize per index into small outputs on TPU, ~10 ms at 2^20
-    updates).  ~log2(N) cheap elementwise passes, exact.
+    into a small output (unmeasured on H100, ROADMAP C2).  ~log2(N)
+    elementwise passes, exact.
 
     Empty segments return (big, -big), matching the scatter identities.
     """
@@ -109,13 +111,41 @@ def segment_min_max(values: jnp.ndarray, seg_id: jnp.ndarray,
     return seg_mn[:n_segments], seg_mx[:n_segments]
 
 
+def ordered_segment_sum(values: jnp.ndarray, seg_id: jnp.ndarray,
+                        n_segments: int):
+    """``zeros((n_segments,) + values.shape[1:]).at[seg_id].add(values)``
+    for ids in any order, with each segment's float sum taken in one fixed
+    order, so a seed gives the same bits on every run.
+
+    A float scatter-add runs as atomics on the GPU, summing colliding
+    elements in an order that changes from run to run.  Here the elements
+    are stably sorted by segment, each run is summed by a segmented scan
+    (whose tree depends only on the length), and each segment's total is
+    stored once.  Ids outside ``[0, n_segments)`` are dropped.
+    """
+    order = jnp.argsort(seg_id, stable=True)
+    k = seg_id[order]
+    v = values[order]
+    new = k[1:] != k[:-1]
+    start = jnp.concatenate([jnp.ones(1, bool), new])
+    last = jnp.concatenate([new, jnp.ones(1, bool)])
+    tail = (1,) * (values.ndim - 1)
+
+    def add_in_segment(a, b):
+        restart = b[0].reshape(b[0].shape + tail)
+        return a[0] | b[0], jnp.where(restart, b[1], a[1] + b[1])
+    _, total = jax.lax.associative_scan(add_in_segment, (start, v))
+    ok = last & (k >= 0) & (k < n_segments)
+    return jnp.zeros((n_segments,) + values.shape[1:], values.dtype).at[
+        jnp.where(ok, k, n_segments)].set(total, mode='drop')
+
+
 def sorted_segment_sum(values: jnp.ndarray, edges: jnp.ndarray, valid=None):
     """Per-segment sum for ascending segment ids: one cumsum plus boundary
     gathers.
 
-    A scatter-add of a large batch into a small per-segment output lowers to
-    a serialized loop fusion on TPU (measured 1.8 s for 262k updates into
-    512 rows); this form is two vector passes (~1 ms at the same shape).
+    Replaces a scatter-add of a large batch into a small per-segment
+    output with two vector passes (unmeasured on H100, ROADMAP C2).
     Integer values sum exactly; float32 cumsum carries O(N*eps*magnitude)
     error — fine for counts/areas, not for second moments.
     """

@@ -5,17 +5,19 @@ This replaces the reference's innermost hot loop ``Pulse.add_current``
 current template (one of 10 one-nanosecond sub-sample phases) per photon into
 a per-channel waveform, one channel at a time in numba.
 
-TPU-native formulation (two phases, both dense):
+Device formulation (two phases, both dense):
 
-1. **Phase histogram** — scatter-add each photon's gain into a
-   (channels, samples, 10) histogram ``H`` indexed by (channel,
-   sample = t//dt - left, remainder = t%dt).  One scalar update per photon;
-   duplicates coalesce in the scatter (the reference coalesced same-ns photons
-   by sorting, pulse.py:297-313).
+1. **Phase histogram** — add each photon's gain into a (channels, 10,
+   samples) histogram ``H`` indexed by (channel, remainder = t%dt,
+   sample = t//dt - left).  Photons are sorted by cell and each cell summed
+   in a fixed order, so the result is the same on every run (the reference
+   coalesced same-ns photons by sorting too, pulse.py:297-313).  A batch
+   of windows is histogrammed window by window, so a batch sharded over
+   windows sorts on each device only its own windows' photons.
 2. **Template convolution** — the waveform is then exactly a 1-D convolution
    along the sample axis with the (10 -> 1)-feature template bank:
-   ``W[c, u] = sum_{r,k} H[c, u-k, r] * T[r, k]``.  This runs as a dense XLA
-   TPU convolution (MXU/VPU), fused with the downstream elementwise work.
+   ``W[c, u] = sum_{r,k} H[c, r, u-k] * T[r, k]``, computed as banded
+   matmuls over 128-sample blocks in full f32.
 
 All shapes are static; validity is carried as a mask.
 """
@@ -26,6 +28,8 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from .segment import ordered_segment_sum
 
 __all__ = ['make_templates', 'photons_to_waveform', 'template_extent']
 
@@ -74,14 +78,19 @@ def photons_to_waveform(times, channels, gains, valid,
                         sample_duration: int = 10):
     """Accumulate photon hits into a dense (n_channels, n_samples) waveform.
 
+    Photon arrays may carry a leading window axis, (B, N): each window is
+    histogrammed on its own and the result is (B * n_channels, n_samples),
+    window b's channels in rows ``b * n_channels ...``.
+
     Device-side times are int32 nanosecond offsets from a host-tracked int64
     base time (windows are bounded well below 2^31 ns); this keeps the whole
-    compute path in native 32-bit TPU arithmetic.
+    compute path in 32-bit arithmetic.
 
-    :param times:    (N,) int32 photon arrival times [ns, window-relative]
-    :param channels: (N,) int32 PMT channel per photon
-    :param gains:    (N,) float32 per-photon gain (electrons / PE)
-    :param valid:    (N,) bool validity mask (padding slots are False)
+    :param times:    (N,) or (B, N) int32 photon arrival times [ns,
+        window-relative]
+    :param channels: int32 PMT channel per photon, shaped as ``times``
+    :param gains:    float32 per-photon gain (electrons / PE)
+    :param valid:    bool validity mask (padding slots are False)
     :param left_sample: scalar int — sample index (in the same relative frame)
         of waveform column 0
     :param templates: (sample_duration, L) float32 SPE template bank
@@ -93,7 +102,6 @@ def photons_to_waveform(times, channels, gains, valid,
     (reference: wfsim/core/pulse.py:303-318).
     """
     dt = sample_duration
-    L = templates.shape[1]
     t32 = times.astype(jnp.int32)
     s = (t32 // dt - left_sample).astype(jnp.int32)
     r = (t32 % dt).astype(jnp.int32)
@@ -105,73 +113,45 @@ def photons_to_waveform(times, channels, gains, valid,
     r = jnp.where(ok, r, 0)
     ch = jnp.where(ok, channels, 0).astype(jnp.int32)
 
-    # Histogram layout (C, dt, T): the sample axis stays minormost so the
-    # array is lane-aligned — a (..., dt=10)-minormost layout would be padded
-    # 10 -> 128 lanes by the TPU (12.8x the HBM footprint).
-    # (A 2-D (C*dt, T+L-1) pre-padded variant consumed segment-wise by the
-    # MXU matmul won its isolated A/B, bench_micro6.py v2, but REGRESSED
-    # in the full gather_digitize context: the per-segment slice/reshape
-    # copies outweighed the single retile once the downstream ADC/ZLE
-    # consumers were fused in — 46.5 -> 58.1 ms/call traced.  Kept on the
-    # flat-scatter + retile form.)
-    flat_idx = (ch.astype(jnp.int32) * dt + r) * n_samples + s
-    H = jnp.zeros((n_channels * dt * n_samples,), dtype=jnp.float32)
-    H = H.at[flat_idx].add(g)
-    H = H.reshape(n_channels, dt, n_samples)
-
-    # W[c, u] = sum_{r,k} H[c, r, u - k] * T[r, k] — causal conv along the
-    # sample axis with the dt phases as input features.
-    if n_samples % 128 == 0:
-        # Banded-matmul form: XLA lowers the (O=1, I=10, W=22) conv to a
-        # VPU loop fusion (~220 MACs/sample, measured 26 ms per digitize
-        # call); expressing each 128-sample output block as
-        # (rows, 10*149) x (10*149, 128) runs on the MXU instead.
-        return _conv_templates_mxu(H, templates.astype(jnp.float32))
-    kernel = jnp.flip(templates, axis=1).astype(jnp.float32)  # (dt, L)
-    kernel = kernel[None, :, :]                               # (O=1, I=dt, L)
-    W = jax.lax.conv_general_dilated(
-        H, kernel,
-        window_strides=(1,),
-        padding=((L - 1, 0),),
-        dimension_numbers=('NCW', 'OIW', 'NCW'),
-        preferred_element_type=jnp.float32,
-        # full f32: default TPU conv/dot precision truncates operands to
-        # bf16, which costs ~0.4% per-sample error — visible after ADC
-        # rounding
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    return W[:, 0, :]
+    # Histogram layout (C, dt, T): the sample axis stays minormost, which
+    # is the layout the superposition reads.  The sums are order-fixed: a
+    # float scatter-add would run as GPU atomics, and a sample within an
+    # ulp of an ADC rounding edge could digitize differently run to run.
+    cell = (ch * dt + r) * n_samples + s
+    size = n_channels * dt * n_samples
+    if cell.ndim == 1:
+        H = ordered_segment_sum(g, cell, size)
+    else:
+        H = jax.vmap(ordered_segment_sum, in_axes=(0, 0, None))(g, cell, size)
+    H = H.reshape(-1, dt, n_samples)
+    return _superpose_templates(H, templates.astype(jnp.float32))
 
 
-def _conv_templates_mxu(H, templates, prepadded=False):
-    """Causal phase-bank convolution as a banded matmul.
+#: output samples per superposition block
+_BLOCK = 128
+
+
+def _superpose_templates(H, templates):
+    """Causal phase-bank convolution as a banded matmul, in full f32.
 
     ``W[c, u] = sum_{r,k} H[c, r, u-k] * T[r, k]`` over 128-sample output
     blocks: each block's (10, 128+L-1) input patch (L-1 samples of history)
     contracts its flattened (10*(128+L-1),) axis against a banded template
-    matrix ``B[(r, m), u] = T[r, u-m+L-1]`` — (rows, 1490) x (1490, 128)
-    MXU matmuls in full f32.
+    matrix ``B[(r, m), u] = T[r, u-m+L-1]`` — one (rows, 1490) x (1490, 128)
+    matmul per block, an unrolled loop of ``dynamic_slice`` + ``dot_general``
+    that reads the padded histogram in place.  A sample count that is not a
+    multiple of 128 is padded at the end and the padding sliced off; the
+    samples kept depend only on earlier histogram columns.
 
-    The blocks run as an unrolled loop of ``dynamic_slice`` + ``dot_general``
-    (one matmul per 128-sample block) rather than one
-    (rows*blocks, 1490)-row matmul over a gathered patch tensor: the
-    one-big-matmul form makes XLA materialize the (R, nseg, 10, M) patch
-    array through two full-size layout copies plus a reshape pass
-    (~37 ms of pure data movement per digitize call at bench shapes, 3x
-    the matmul itself), while the slice form reads ``Hp`` in place.
-    Measured A/B at the (31616, 10, 1024) trace shape: 56.3 -> 13.3
-    ms/call, compile 302 s -> 10 s; results agree to 1 f32 ulp (630 of
-    32.4M elements differ, reduction-order only).
+    On the H100 this form beat ``lax.conv_general_dilated`` with the same
+    precision (PERF.md, bring-up).  ``Precision.HIGHEST`` keeps the products
+    in f32: TF32 would move samples across ADC rounding edges.
     """
     L = templates.shape[1]
-    if prepadded:
-        Hp = H
-        R, dt, T = H.shape[0], H.shape[1], H.shape[2] - (L - 1)
-    else:
-        R, dt, T = H.shape
-        Hp = jnp.pad(H, ((0, 0), (0, 0), (L - 1, 0)))
-    S = 128
-    nseg = T // S
+    R, dt, T = H.shape
+    S = _BLOCK
+    nseg = -(-T // S)
+    Hp = jnp.pad(H, ((0, 0), (0, 0), (L - 1, nseg * S - T)))
     M = S + L - 1
     u = jnp.arange(S, dtype=jnp.int32)[None, :]
     m = jnp.arange(M, dtype=jnp.int32)[:, None]
@@ -187,4 +167,4 @@ def _conv_templates_mxu(H, templates, prepadded=False):
             (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.HIGHEST))
-    return jnp.concatenate(outs, axis=1)
+    return jnp.concatenate(outs, axis=1)[:, :T]

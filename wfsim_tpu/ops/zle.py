@@ -33,7 +33,7 @@ def find_intervals(below: jnp.ndarray, *, holdoff: int, max_intervals: int):
 
     Start/end samples are detected with running max/min of below-threshold
     indices (the holdoff gap rule), then the first K per channel are
-    extracted with ``top_k`` — no scatters, which XLA TPU serializes badly.
+    extracted with ``top_k`` — no scatters.
     """
     C, T = below.shape
     idx = jnp.arange(T, dtype=jnp.int32)[None, :]
@@ -80,10 +80,11 @@ def find_intervals(below: jnp.ndarray, *, holdoff: int, max_intervals: int):
     is_end = below & ~next_any
 
     # Extract the first K starts/ends per channel in ascending sample order.
-    # Consecutive starts (and ends) are at least holdoff+1 samples apart, so
-    # a block of S <= holdoff+1 samples holds at most one marker: compress to
-    # one candidate per block, then a tiny per-row sort compacts them —
-    # avoiding a full-width top_k (which lowers to an expensive sort on TPU).
+    # Consecutive starts (and ends) are at least holdoff+1 samples apart, so a
+    # block of S <= holdoff+1 samples holds at most one marker: compress to one
+    # candidate per block, then a tiny per-row sort compacts them — avoiding a
+    # full-width top_k, which lowers to a sort (unmeasured on H100, ROADMAP
+    # C2).
     S = 64
     if holdoff + 1 >= S and T % S == 0:
         nb = T // S

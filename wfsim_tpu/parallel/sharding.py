@@ -1,15 +1,15 @@
 """Multi-chip scaling via jax.sharding + shard_map.
 
 The reference is strictly single-process (SURVEY s2.4: no parallelism of any
-kind); this module is where the TPU framework goes beyond it.  The physics is
+kind); this module is where this framework goes beyond it.  The physics is
 embarrassingly parallel in *events* (photons never interact), and the
 digitization grid is embarrassingly parallel in *channels* except for the
 bottom-array sum signal — so the natural mesh is
 
     Mesh(axes = ('events', 'channels'))
 
-- instruction batches are sharded over 'events' (pure data parallelism over
-  ICI — each chip simulates its own events end-to-end);
+- instruction batches are sharded over 'events' (pure data parallelism —
+  each device simulates its own events end-to-end);
 - the per-window digitization grid is sharded over 'channels' (each chip owns
   a contiguous PMT block, builds its waveform from the full photon list, and
   runs ZLE locally);
@@ -17,7 +17,7 @@ bottom-array sum signal — so the natural mesh is
   bottom-array sum-signal channel, plus an optional ``psum`` of truth
   aggregates over events.
 
-Across hosts (DCN) the work splits into independent instruction streams per
+Across hosts the work splits into independent instruction streams per
 chunk — no collectives at all — matching SURVEY s5.8.
 """
 from __future__ import annotations

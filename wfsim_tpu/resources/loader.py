@@ -3,7 +3,7 @@
 Same role as the reference's ``load_resource.py`` (reference:
 wfsim/load_resource.py:34-380): turn config entries into maps, SPE tables,
 afterpulse CDFs and noise banks, cached by config hash.  Differences, by
-design, for TPU:
+design, for the device:
 
 * every spatial map is re-gridded at load time into a :class:`GridMap`
   (regular grid + device multilinear lookup) instead of host-side

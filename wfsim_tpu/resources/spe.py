@@ -2,7 +2,7 @@
 
 The reference converts each channel's measured SPE charge spectrum into a
 2001-point uniform->gain lookup grid (reference: wfsim/core/pulse.py:189-227).
-That representation is already ideal for TPU (a gather per photon), so we keep
+That representation already suits the device (a gather per photon), so we keep
 it: ``uniform_to_pe[channel, int(u * 2000) + 1]``.
 """
 from __future__ import annotations
